@@ -1,20 +1,12 @@
-// Binned-SAH BVH builder with DFS flattening + exit links, plus an
-// SBVH-style spatial-split builder (Stich et al. 2009) for the packet BVH.
+// Binned-SAH BVH builder with DFS flattening + exit links.
 //
 // Native replacement for the Python fallback in scene/meshbuild.py and the
-// TPU-era equivalent of the reference's host-side BVH construction
+// counterpart of the reference's host-side BVH construction
 // (reference: src/renderer/BvhBuilder.mm median split + external/tinybvh
 // SAH BLAS). Output contract matches schema.BvhSoA:
 //   - nodes stored depth-first, left (near) child at node+1
 //   - exit_index = where traversal resumes on AABB miss / after a leaf
 //   - leaves reference a reordered prim_indices array, prim_count <= maxLeaf
-//
-// build_bvh_sbvh additionally allows a triangle to be REFERENCED by more
-// than one leaf with clipped bounds, which removes most sibling overlap on
-// displaced/long-triangle meshes (fewer node visits per packet). Duplicate
-// references are transparent to every consumer: a hit against either
-// reference is the same (triangle id, t) — packet chunks store original
-// triangle ids.
 //
 // Exposed via a C ABI for ctypes (no pybind11 in the image).
 //
@@ -191,327 +183,7 @@ struct Builder {
     }
 };
 
-// ---------------------------------------------------------------------------
-// SBVH: spatial splits (Stich et al., "Spatial Splits in Bounding Volume
-// Hierarchies", HPG 2009). A reference = (triangle id, clipped AABB); a
-// triangle straddling a chosen spatial plane is referenced on both sides
-// with bounds clipped to the plane, removing sibling overlap.
-
-struct Ref {
-    int32_t tri;
-    Aabb box;
-};
-
-inline float axis_of(const Vec3& v, int axis) {
-    return axis == 0 ? v.x : (axis == 1 ? v.y : v.z);
-}
-
-inline Aabb intersect(const Aabb& a, const Aabb& b) {
-    Aabb r;
-    r.mn = vmax(a.mn, b.mn);
-    r.mx = vmin(a.mx, b.mx);
-    return r;
-}
-
-inline bool empty_box(const Aabb& b) {
-    return b.mn.x > b.mx.x || b.mn.y > b.mx.y || b.mn.z > b.mx.z;
-}
-
-// Sutherland–Hodgman clip of a convex polygon against axis >= bound
-// (keep_greater) or axis <= bound. in/out must not alias; out cap n_in+1.
-static int clip_poly(const Vec3* in, int n_in, Vec3* out, int axis,
-                     float bound, bool keep_greater) {
-    int n_out = 0;
-    for (int i = 0; i < n_in; ++i) {
-        const Vec3& a = in[i];
-        const Vec3& b = in[(i + 1) % n_in];
-        float va = axis_of(a, axis);
-        float vb = axis_of(b, axis);
-        bool ina = keep_greater ? (va >= bound) : (va <= bound);
-        bool inb = keep_greater ? (vb >= bound) : (vb <= bound);
-        if (ina) out[n_out++] = a;
-        if (ina != inb) {
-            float t = (bound - va) / (vb - va);
-            out[n_out++] = {a.x + t * (b.x - a.x), a.y + t * (b.y - a.y),
-                            a.z + t * (b.z - a.z)};
-        }
-    }
-    return n_out;
-}
-
-// AABB of triangle `tri` clipped to the slab lo <= axis <= hi.
-static Aabb clip_tri_slab(const Vec3* tv, int axis, float lo, float hi) {
-    Vec3 poly_a[8], poly_b[8];
-    poly_a[0] = tv[0];
-    poly_a[1] = tv[1];
-    poly_a[2] = tv[2];
-    int n = clip_poly(poly_a, 3, poly_b, axis, lo, /*keep_greater=*/true);
-    n = clip_poly(poly_b, n, poly_a, axis, hi, /*keep_greater=*/false);
-    Aabb r;
-    for (int i = 0; i < n; ++i) r.grow(poly_a[i]);
-    return r;
-}
-
-struct SbvhBuilder {
-    const Vec3* tri_verts;  // 3 per triangle
-    int max_leaf;
-    int n_bins;
-    float root_area = 0.0f;
-    float alpha = 1e-5f;    // overlap/root_area threshold for spatial tries
-    size_t max_refs = 0;    // global duplication budget
-    size_t refs_used = 0;
-    std::vector<BuildNode> nodes;
-    std::vector<int32_t> prim_order;
-
-    Aabb clipped(int tri, int axis, float lo, float hi,
-                 const Aabb& ref_box) const {
-        Aabb c = intersect(clip_tri_slab(tri_verts + 3 * tri, axis, lo, hi),
-                           ref_box);
-        return c;
-    }
-
-    int build(std::vector<Ref>& refs, int depth) {
-        int node_id = static_cast<int>(nodes.size());
-        nodes.emplace_back();
-        const int count = static_cast<int>(refs.size());
-        Aabb bounds;
-        Aabb cbounds;
-        for (const Ref& r : refs) {
-            bounds.grow(r.box);
-            Vec3 c{(r.box.mn.x + r.box.mx.x) * 0.5f,
-                   (r.box.mn.y + r.box.mx.y) * 0.5f,
-                   (r.box.mn.z + r.box.mx.z) * 0.5f};
-            cbounds.grow(c);
-        }
-        nodes[node_id].bounds = bounds;
-
-        auto make_leaf = [&]() {
-            // dedup: disjoint references of one triangle can reconverge
-            int32_t off = static_cast<int32_t>(prim_order.size());
-            for (const Ref& r : refs) prim_order.push_back(r.tri);
-            std::sort(prim_order.begin() + off, prim_order.end());
-            prim_order.erase(
-                std::unique(prim_order.begin() + off, prim_order.end()),
-                prim_order.end());
-            nodes[node_id].prim_offset = off;
-            nodes[node_id].prim_count =
-                static_cast<int32_t>(prim_order.size()) - off;
-        };
-
-        // depth cap: oversized leaves are legal for the packet-BVH caller
-        // (packetbvh._split_oversized_leaves re-splits them Morton-wise)
-        if (count <= max_leaf || depth >= 60) {
-            make_leaf();
-            return node_id;
-        }
-
-        // ---- object split (binned SAH over reference centroids) --------
-        float ext[3] = {cbounds.mx.x - cbounds.mn.x,
-                        cbounds.mx.y - cbounds.mn.y,
-                        cbounds.mx.z - cbounds.mn.z};
-        int oaxis = 0;
-        if (ext[1] > ext[oaxis]) oaxis = 1;
-        if (ext[2] > ext[oaxis]) oaxis = 2;
-        float obj_cost = std::numeric_limits<float>::infinity();
-        int obj_split = -1;
-        Aabb obj_lb, obj_rb;
-        float cmin = axis_of(cbounds.mn, oaxis);
-        float cscale = ext[oaxis] > 1e-12f ? n_bins / ext[oaxis] : 0.0f;
-        auto obin_of = [&](const Ref& r) {
-            float v = (axis_of(r.box.mn, oaxis) + axis_of(r.box.mx, oaxis))
-                      * 0.5f;
-            int b = static_cast<int>((v - cmin) * cscale);
-            return std::min(std::max(b, 0), n_bins - 1);
-        };
-        if (ext[oaxis] > 1e-12f) {
-            std::vector<Aabb> bb(n_bins);
-            std::vector<int> bc(n_bins, 0);
-            for (const Ref& r : refs) {
-                int b = obin_of(r);
-                bb[b].grow(r.box);
-                bc[b]++;
-            }
-            std::vector<float> r_area(n_bins);
-            std::vector<int> r_cnt(n_bins);
-            std::vector<Aabb> r_box(n_bins);
-            {
-                Aabb acc;
-                int cnt = 0;
-                for (int b = n_bins - 1; b >= 0; --b) {
-                    if (bc[b]) acc.grow(bb[b]);
-                    cnt += bc[b];
-                    r_area[b] = cnt ? acc.area() : 0.0f;
-                    r_cnt[b] = cnt;
-                    r_box[b] = acc;
-                }
-            }
-            Aabb acc;
-            int cnt = 0;
-            for (int b = 0; b < n_bins - 1; ++b) {
-                if (bc[b]) acc.grow(bb[b]);
-                cnt += bc[b];
-                if (cnt == 0 || r_cnt[b + 1] == 0) continue;
-                float cost = acc.area() * cnt + r_area[b + 1] * r_cnt[b + 1];
-                if (cost < obj_cost) {
-                    obj_cost = cost;
-                    obj_split = b;
-                    obj_lb = acc;
-                    obj_rb = r_box[b + 1];
-                }
-            }
-        }
-
-        // ---- spatial split (chopped binning), tried when the object
-        // split's children overlap more than alpha * root area ------------
-        float sp_cost = std::numeric_limits<float>::infinity();
-        int sp_split = -1;
-        int sp_axis = 0;
-        float sp_lo = 0.0f, sp_step = 0.0f;
-        bool budget_ok = refs_used + static_cast<size_t>(count) / 4 + 8
-                         < max_refs;
-        float overlap_area = 0.0f;
-        if (obj_split >= 0) {
-            Aabb ov = intersect(obj_lb, obj_rb);
-            if (!empty_box(ov)) overlap_area = ov.area();
-        }
-        if (budget_ok
-            && (obj_split < 0 || overlap_area > alpha * root_area)) {
-            float next[3] = {bounds.mx.x - bounds.mn.x,
-                             bounds.mx.y - bounds.mn.y,
-                             bounds.mx.z - bounds.mn.z};
-            int axis = 0;
-            if (next[1] > next[axis]) axis = 1;
-            if (next[2] > next[axis]) axis = 2;
-            float lo = axis_of(bounds.mn, axis);
-            float extent = next[axis];
-            if (extent > 1e-12f) {
-                float step = extent / n_bins;
-                float inv_step = n_bins / extent;
-                std::vector<Aabb> bb(n_bins);
-                std::vector<int> entry(n_bins, 0), exit_(n_bins, 0);
-                for (const Ref& r : refs) {
-                    int b0 = static_cast<int>(
-                        (axis_of(r.box.mn, axis) - lo) * inv_step);
-                    int b1 = static_cast<int>(
-                        (axis_of(r.box.mx, axis) - lo) * inv_step);
-                    b0 = std::min(std::max(b0, 0), n_bins - 1);
-                    b1 = std::min(std::max(b1, 0), n_bins - 1);
-                    entry[b0]++;
-                    exit_[b1]++;
-                    if (b0 == b1) {
-                        bb[b0].grow(r.box);
-                    } else {
-                        for (int b = b0; b <= b1; ++b) {
-                            Aabb c = clipped(r.tri, axis, lo + b * step,
-                                             lo + (b + 1) * step, r.box);
-                            if (!empty_box(c)) bb[b].grow(c);
-                        }
-                    }
-                }
-                std::vector<float> r_area(n_bins);
-                std::vector<int> r_cnt(n_bins);
-                {
-                    Aabb acc;
-                    int cnt = 0;
-                    for (int b = n_bins - 1; b >= 0; --b) {
-                        // unconditional: a bin crossed only by MIDDLE
-                        // portions of straddlers has entry==exit==0 but
-                        // non-empty clipped bounds (growing an empty
-                        // Aabb is a no-op anyway)
-                        acc.grow(bb[b]);
-                        cnt += exit_[b];
-                        r_area[b] = cnt ? acc.area() : 0.0f;
-                        r_cnt[b] = cnt;
-                    }
-                }
-                Aabb acc;
-                int cnt = 0;
-                for (int b = 0; b < n_bins - 1; ++b) {
-                    acc.grow(bb[b]);
-                    cnt += entry[b];
-                    if (cnt == 0 || r_cnt[b + 1] == 0) continue;
-                    float cost =
-                        acc.area() * cnt + r_area[b + 1] * r_cnt[b + 1];
-                    if (cost < sp_cost) {
-                        sp_cost = cost;
-                        sp_split = b;
-                    }
-                }
-                sp_axis = axis;
-                sp_lo = lo;
-                sp_step = step;
-            }
-        }
-
-        std::vector<Ref> left, right;
-        left.reserve(count / 2 + 8);
-        right.reserve(count / 2 + 8);
-        if (sp_split >= 0 && sp_cost < obj_cost) {
-            // spatial: straddlers are duplicated with plane-clipped bounds
-            float pos = sp_lo + (sp_split + 1) * sp_step;
-            const float inf = std::numeric_limits<float>::infinity();
-            for (const Ref& r : refs) {
-                if (axis_of(r.box.mx, sp_axis) <= pos) {
-                    left.push_back(r);
-                } else if (axis_of(r.box.mn, sp_axis) >= pos) {
-                    right.push_back(r);
-                } else {
-                    Aabb lb = clipped(r.tri, sp_axis, -inf, pos, r.box);
-                    Aabb rb = clipped(r.tri, sp_axis, pos, inf, r.box);
-                    if (empty_box(lb)) {
-                        right.push_back(r);
-                    } else if (empty_box(rb)) {
-                        left.push_back(r);
-                    } else if (refs_used + 1 >= max_refs) {
-                        // hard budget: keep one unclipped reference on the
-                        // side where more of the triangle lives
-                        (lb.area() >= rb.area() ? left : right).push_back(r);
-                    } else {
-                        left.push_back({r.tri, lb});
-                        right.push_back({r.tri, rb});
-                        refs_used++;
-                    }
-                }
-            }
-        } else if (obj_split >= 0) {
-            for (const Ref& r : refs) {
-                (obin_of(r) <= obj_split ? left : right).push_back(r);
-            }
-        }
-        if (left.empty() || right.empty()) {
-            // degenerate: median split on the centroid axis
-            left.clear();
-            right.clear();
-            std::vector<Ref> tmp = refs;
-            int mid = count / 2;
-            std::nth_element(
-                tmp.begin(), tmp.begin() + mid, tmp.end(),
-                [&](const Ref& a, const Ref& b) {
-                    return axis_of(a.box.mn, oaxis) + axis_of(a.box.mx, oaxis)
-                           < axis_of(b.box.mn, oaxis)
-                                 + axis_of(b.box.mx, oaxis);
-                });
-            left.assign(tmp.begin(), tmp.begin() + mid);
-            right.assign(tmp.begin() + mid, tmp.end());
-            if (left.empty() || right.empty()) {
-                make_leaf();
-                return node_id;
-            }
-        }
-        refs.clear();
-        refs.shrink_to_fit();
-        int l = build(left, depth + 1);
-        {
-            std::vector<Ref>().swap(left);
-        }
-        int rt = build(right, depth + 1);
-        nodes[node_id].left = l;
-        nodes[node_id].right = rt;
-        return node_id;
-    }
-};
-
-// Shared DFS flatten + exit-link emit for both builders.
+// DFS flatten + exit-link emit.
 static int emit_flat(const std::vector<BuildNode>& bnodes,
                      const std::vector<int32_t>& order_prims,
                      float* out_bounds_min, float* out_bounds_max,
@@ -571,62 +243,6 @@ static int emit_flat(const std::vector<BuildNode>& bnodes,
 }
 
 }  // namespace
-
-extern "C" int build_bvh_sbvh(int n_tris,
-                              const float* verts,       // (n, 9): v0 v1 v2
-                              float* out_bounds_min,    // (max_nodes, 3)
-                              float* out_bounds_max,
-                              int32_t* out_prim_offset,
-                              int32_t* out_prim_count,
-                              int32_t* out_exit_index,
-                              int32_t* out_prim_indices,  // (max_refs)
-                              int max_refs,
-                              int max_nodes,
-                              int32_t* out_n_refs,
-                              int max_leaf,
-                              int n_bins,
-                              float alpha) {
-    if (n_tris <= 0 || max_refs < n_tris) return -1;
-
-    std::vector<Vec3> tv(3 * n_tris);
-    std::vector<Ref> refs(n_tris);
-    Aabb root;
-    for (int i = 0; i < n_tris; ++i) {
-        const float* v = verts + 9 * i;
-        tv[3 * i + 0] = {v[0], v[1], v[2]};
-        tv[3 * i + 1] = {v[3], v[4], v[5]};
-        tv[3 * i + 2] = {v[6], v[7], v[8]};
-        Aabb b;
-        b.grow(tv[3 * i + 0]);
-        b.grow(tv[3 * i + 1]);
-        b.grow(tv[3 * i + 2]);
-        refs[i] = {i, b};
-        root.grow(b);
-    }
-
-    SbvhBuilder builder;
-    builder.tri_verts = tv.data();
-    builder.max_leaf = max_leaf;
-    builder.n_bins = n_bins;
-    builder.alpha = alpha;
-    builder.root_area = root.area();
-    builder.max_refs = static_cast<size_t>(max_refs);
-    builder.refs_used = static_cast<size_t>(n_tris);
-    builder.nodes.reserve(3 * static_cast<size_t>(n_tris));
-    builder.prim_order.reserve(max_refs);
-    builder.build(refs, 0);
-
-    if (builder.prim_order.size() > static_cast<size_t>(max_refs))
-        return -2;  // caller retries with a bigger buffer (shouldn't happen:
-                    // the budget gate bounds duplication below max_refs)
-    if (builder.nodes.size() > static_cast<size_t>(max_nodes))
-        return -3;  // node buffers too small (worst case 2*refs-1 nodes —
-                    // unbalanced singleton splits on tiny meshes)
-    *out_n_refs = static_cast<int32_t>(builder.prim_order.size());
-    return emit_flat(builder.nodes, builder.prim_order, out_bounds_min,
-                     out_bounds_max, out_prim_offset, out_prim_count,
-                     out_exit_index, out_prim_indices);
-}
 
 extern "C" int build_bvh_sah(int n_tris,
                              const float* verts,  // (n, 9): v0 v1 v2

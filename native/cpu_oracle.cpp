@@ -174,7 +174,7 @@ struct Scene {
     const int* cond_alias = nullptr;
     const float* env_pdf = nullptr;
     float env_rotation = 0.0f, env_intensity = 1.0f;
-    // base-color textures (uniform tex_size^2 RGB linear — the TPU side's
+    // base-color textures (uniform tex_size^2 RGB linear — the JAX side's
     // ops/textures.py resampled pool; oracle samples bilinear at LOD 0)
     const float* tri_uv = nullptr;   // (T,6) uv per corner
     const float* tri_tan = nullptr;  // (T,12) per-corner tangents
@@ -233,7 +233,7 @@ static V3 sample_base_tex(const Scene& sc, int tid, float u, float v) {
     return top * (1 - fy) + bot * fy;
 }
 
-// Texturing applies to PBR materials only (the TPU side gates textures on
+// Texturing applies to PBR materials only (the JAX side gates textures on
 // the pbr lane — ops/pbr_textures.py:331). Implements the full slot set:
 // base / ORM / normal / occlusion / emissive / transmission
 // (ops/pbr_textures.py apply_pbr_textures; reference :5919-6424), bilinear
@@ -536,16 +536,26 @@ float ggx_lambda(float a, float c) {
     return (-1.0f + std::sqrt(1.0f + aa * aa)) * 0.5f;
 }
 float ggx_g1(float a, float c) { return 1.0f / (1.0f + ggx_lambda(a, c)); }
-float ggx_d(float a, float ch) {
-    float ac = std::fabs(ch), a2 = a * a;
-    float den = ac * ac * (a2 - 1.0f) + 1.0f;
+// GGX D of half vector h about n, with 1 - cos^2 taken as |n x h|^2: near
+// the normal 1 - cos^2 keeps no significant float digits, the cross
+// product keeps full relative precision (ops/bsdf.py ggx_d).
+float ggx_d(float a, V3 n, V3 h, bool clamp_negative = false) {
+    float c = dot(n, h);
+    V3 nxh = cross(n, h);
+    float s2 = dot(nxh, nxh);
+    if (clamp_negative && c < 0.0f) {
+        s2 = 1.0f;
+        c = 0.0f;
+    }
+    float a2 = a * a;
+    float den = s2 + c * c * a2;
     return a2 / (kPi * den * den);
 }
 float ggx_pdf(float a, V3 n, V3 wo, V3 wi) {
     V3 wh = normalize(wo + wi);
     float ch = dot(n, wh), dwh = dot(wo, wh), co = dot(n, wo);
     if (co <= 0 || ch <= 0 || dwh <= 0) return 0;
-    return ggx_d(a, ch) * ggx_g1(a, co) * ch / (4.0f * std::max(dwh, 1e-6f));
+    return ggx_d(a, n, wh) * ggx_g1(a, co) * ch / (4.0f * std::max(dwh, 1e-6f));
 }
 V3 to_local(V3 v, V3 n) {
     V3 t, b;
@@ -696,7 +706,7 @@ V3 pbr_transmission_tint(const Material& m, float cos_theta) {
 float ggx_vndf_pdf(float a, V3 n, V3 wo, V3 wh) {
     float co = dot(n, wo), ch = dot(n, wh);
     if (co <= 0.0f || ch <= 0.0f) return 0.0f;
-    return ggx_d(a, ch) * ggx_g1(a, co) * ch / std::max(dot(wo, wh), 1e-6f);
+    return ggx_d(a, n, wh) * ggx_g1(a, co) * ch / std::max(dot(wo, wh), 1e-6f);
 }
 
 EvalResult eval_pbr(const Material& m, V3 n, V3 wo, V3 wi) {
@@ -715,7 +725,7 @@ EvalResult eval_pbr(const Material& m, V3 n, V3 wo, V3 wi) {
         // reflection side (ops/pbr.py evaluate_pbr reflection block)
         V3 wh = normalize(wo + wi);
         if (dot(wh, n) > 0.0f && dot(wo, wh) > 0.0f && dot(wi, wh) > 0.0f) {
-            float D = ggx_d(alpha, dot(n, wh));
+            float D = ggx_d(alpha, n, wh);
             float G = ggx_g1(alpha, cos_o) * ggx_g1(alpha, cos_i);
             V3 F = schlick(L.f0, dot(wi, wh));
             V3 spec = F * (D * G / std::max(4.0f * cos_o * cos_i, 1e-6f));
@@ -746,7 +756,7 @@ EvalResult eval_pbr(const Material& m, V3 n, V3 wo, V3 wi) {
     if (dot(wht, n) <= 0.0f) wht = wht * -1.0f;
     float cos_o_wh = dot(wo, wht), cos_i_wh = dot(wi, wht);
     if (cos_o_wh * cos_i_wh > 0.0f) return r;
-    float Dt = ggx_d(alpha, std::max(dot(n, wht), 0.0f));
+    float Dt = ggx_d(alpha, n, wht, true);
     float Gt = ggx_g1(alpha, abs_o) * ggx_g1(alpha, abs_i);
     float cost_unused;
     float Fr = fresnel_dielectric(cos_o_wh, eta_i, eta_t, cost_unused);
@@ -796,7 +806,7 @@ SampleResult sample_pbr(const Material& m, V3 n, V3 wo, V3 incident,
             V3 wh = sample_vndf(n, wo, L.roughness, s);
             wi = normalize(reflect(wo * -1.0f, wh));
             float cos_i = dot(n, wi);
-            float D = ggx_d(alpha, dot(n, wh));
+            float D = ggx_d(alpha, n, wh);
             float G = ggx_g1(alpha, std::max(cos_o, 0.0f)) * ggx_g1(alpha, cos_i);
             f = schlick(L.f0, dot(wi, wh)) *
                 (D * G / std::max(4.0f * std::max(cos_o, 0.0f) * cos_i, 1e-6f));
@@ -845,7 +855,7 @@ SampleResult sample_pbr(const Material& m, V3 n, V3 wo, V3 incident,
                 float cos_i = dot(n, wi);
                 float abs_i = std::fabs(cos_i);
                 float cos_o_wh = dot(wo, wh), cos_i_wh = dot(wi, wh);
-                float Dt = ggx_d(alpha, std::max(dot(n, wh), 0.0f));
+                float Dt = ggx_d(alpha, n, wh, true);
                 float Gt = ggx_g1(alpha, abs_o) * ggx_g1(alpha, abs_i);
                 float cost_unused;
                 float Fr = fresnel_dielectric(cos_o_wh, eta_i, eta_t, cost_unused);
@@ -930,7 +940,7 @@ void carpaint_eval_coat(const Material& m, V3 n, V3 wo, V3 wi, V3& f, float& pdf
     float alpha = std::max(rough * rough, 1e-4f);
     V3 wh = normalize(wo + wi);
     if (!(dot(wh, n) > 0 && dot(wo, wh) > 0 && dot(wi, wh) > 0)) return;
-    float D = ggx_d(alpha, dot(n, wh));
+    float D = ggx_d(alpha, n, wh);
     float G = ggx_g1(alpha, co) * ggx_g1(alpha, ci);
     float f0 = plastic_coat_f0(m);
     V3 F = schlick({f0, f0, f0}, dot(wi, wh));
@@ -953,7 +963,7 @@ void carpaint_eval_flake(const Material& m, V3 position, V3 n, V3 wo, V3 wi,
     float alpha = rough * rough;
     V3 wh = normalize(wo + wi);
     if (!(dot(wh, fn) > 0 && dot(wo, wh) > 0 && dot(wi, wh) > 0)) return;
-    float D = ggx_d(alpha, dot(fn, wh));
+    float D = ggx_d(alpha, fn, wh);
     float G = ggx_g1(alpha, co) * ggx_g1(alpha, ci);
     V3 F = schlick(carpaint_base_f0(m), dot(wi, wh));
     V3 spec = F * (D * G / std::max(4.0f * co * ci, 1e-6f));
@@ -996,7 +1006,7 @@ void carpaint_eval_base(const Material& m, V3 n, V3 wo, V3 wi, V3& f, float& pdf
     float pdf_spec = 0;
     bool half_ok = dot(wh, n) > 0 && dot(wo, wh) > 0 && dot(wi, wh) > 0;
     if (spec_w > 1e-4f && half_ok) {
-        float D = ggx_d(alpha, dot(n, wh));
+        float D = ggx_d(alpha, n, wh);
         float G = ggx_g1(alpha, co) * ggx_g1(alpha, ci);
         V3 F = m.cp_has_base_conductor > 0.0f
                    ? fresnel_conductor(dot(wi, wh), m.cp_base_eta, m.cp_base_k)
@@ -1291,7 +1301,7 @@ SampleResult sample_sss_walk_oracle(const Scene& sc, const Material& m,
         V3 wh = sample_vndf(n, wo, rough, s);
         V3 wi = normalize(reflect(wo * -1.0f, wh));
         float ci = dot(n, wi), co = dot(n, wo);
-        float D = ggx_d(alpha, dot(n, wh));
+        float D = ggx_d(alpha, n, wh);
         float G = ggx_g1(alpha, co) * ggx_g1(alpha, ci);
         V3 F = schlick(f0c, dot(wi, wh));
         V3 spec = F * (D * G / std::max(4.0f * co * ci, 1e-6f));
@@ -1417,7 +1427,7 @@ EvalResult eval_bsdf(const Material& m, V3 pos, V3 n, V3 wo, V3 wi) {
             float a = rough * rough;
             V3 wh = normalize(wo + wi);
             if (dot(wh, n) <= 0 || dot(wo, wh) <= 0 || dot(wi, wh) <= 0) break;
-            float D = ggx_d(a, dot(n, wh));
+            float D = ggx_d(a, n, wh);
             float G = ggx_g1(a, co) * ggx_g1(a, ci);
             V3 f0 = conductor_f0(m);
             V3 F = has_conductor(m)
@@ -1444,7 +1454,7 @@ EvalResult eval_bsdf(const Material& m, V3 pos, V3 n, V3 wo, V3 wi) {
             float pdf_s = 0;
             V3 wh = normalize(wo + wi);
             if (dot(wh, n) > 0 && dot(wo, wh) > 0 && dot(wi, wh) > 0) {
-                float D = ggx_d(a, dot(n, wh));
+                float D = ggx_d(a, n, wh);
                 float G = ggx_g1(a, co) * ggx_g1(a, ci);
                 V3 F = schlick(f0c, dot(wi, wh));
                 spec = F * (D * G / std::max(4.0f * co * ci, 1e-6f));
@@ -1513,7 +1523,7 @@ SampleResult sample_bsdf(const Material& m, V3 pos, V3 n, V3 wo, V3 incident,
             V3 wi = normalize(reflect(wo * -1.0f, wh));
             float ci = dot(n, wi), co = dot(n, wo);
             if (ci <= 0 || co <= 0 || dot(wo, wh) <= 0) return r;
-            float D = ggx_d(a, dot(n, wh));
+            float D = ggx_d(a, n, wh);
             float G = ggx_g1(a, co) * ggx_g1(a, ci);
             V3 F = has_conductor(m)
                        ? fresnel_conductor(dot(wi, wh), m.conductor_eta, m.conductor_k)
@@ -1578,7 +1588,7 @@ SampleResult sample_bsdf(const Material& m, V3 pos, V3 n, V3 wo, V3 incident,
                 V3 wi = normalize(reflect(wo * -1.0f, wh));
                 float ci = dot(n, wi);
                 if (ci <= 0 || dot(wi, wh) <= 0) return r;
-                float D = ggx_d(a, dot(n, wh));
+                float D = ggx_d(a, n, wh);
                 float G = ggx_g1(a, co) * ggx_g1(a, ci);
                 V3 F = schlick(f0c, dot(wi, wh));
                 V3 spec = F * (D * G / std::max(4.0f * co * ci, 1e-6f));

@@ -4,7 +4,7 @@
  * (reference: src/assets/TangentGen.mm:8-110): per-corner tangents from
  * the spec implementation, scattered to the corner's vertex index (the
  * adapter convention for indexed meshes). The UV-derivative fallback
- * lives in metal_pathtracer_tpu/scene/tangent.py.
+ * lives in metal_pathtracer/scene/tangent.py.
  */
 
 #include <string.h>

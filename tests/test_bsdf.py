@@ -9,9 +9,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from metal_pathtracer_tpu import constants as C
-from metal_pathtracer_tpu.ops import bsdf as bsdf_ops
-from metal_pathtracer_tpu.scene.resources import Material, SceneResources
+from metal_pathtracer import constants as C
+from metal_pathtracer.ops import bsdf as bsdf_ops
+from metal_pathtracer.scene.resources import Material, SceneResources
 
 
 def make_lanes(material: Material, n: int):
@@ -182,7 +182,7 @@ def test_carpaint_sample_eval_consistency():
                    carpaint_flake_sample_weight=0.0,
                    coat_roughness=0.2, coat_ior=1.5)
     m, wo, smp = run_sample(mat, types=[C.MATERIAL_CARPAINT])
-    from metal_pathtracer_tpu.ops import carpaint as cp
+    from metal_pathtracer.ops import carpaint as cp
     value, pdf = cp.evaluate_carpaint(m, POS, NORMAL, wo, smp.direction,
                                       default_clamp())
     valid = (np.asarray(smp.pdf) > 0) & (np.asarray(pdf) > 0)
@@ -231,7 +231,7 @@ def test_pbr_sample_eval_pdf_relationship():
     mat = Material(base_color=(0.6, 0.7, 0.8), roughness=0.4,
                    mat_type=C.MATERIAL_PBR, pbr_metallic=0.3, ior=1.5)
     m, wo, smp = run_sample(mat, types=[C.MATERIAL_PBR])
-    from metal_pathtracer_tpu.ops import pbr as pbr_ops
+    from metal_pathtracer.ops import pbr as pbr_ops
     ev = pbr_ops.evaluate_pbr(m, NORMAL, wo, smp.direction, default_clamp(),
                               jnp.ones(N, jnp.float32), False)
     valid = (np.asarray(smp.pdf) > 0) & (np.asarray(ev.pdf) > 0) \
@@ -286,3 +286,30 @@ def test_rng_stream_isolation_between_types():
     # lambert lanes drew 2, dielectric lanes drew 1 -> different states
     assert (s[0::2] == s[0]).all() and (s[1::2] == s[1]).all()
     assert s[0] != s[1]
+
+
+@pytest.mark.parametrize("roughness", [0.02, 0.05, 0.3])
+def test_ggx_d_keeps_precision_near_the_normal(roughness):
+    """A smooth lobe puts its half vectors within a few float32 ulps of
+    the normal, where 1 - cos^2 has no significant digits; D must still
+    match a float64 evaluation (it now takes 1 - cos^2 as |n x h|^2)."""
+    alpha = roughness * roughness
+    theta = np.linspace(0.0, 4.0 * alpha, 33)
+    phi = np.linspace(0.0, 2.0 * np.pi, 33)
+    n = np.array([0.3, 0.5, -0.8])
+    n /= np.linalg.norm(n)
+    t = np.cross(n, [0.0, 0.0, 1.0])
+    t /= np.linalg.norm(t)
+    b = np.cross(n, t)
+    h = (np.cos(theta)[:, None] * n
+         + np.sin(theta)[:, None] * (np.cos(phi)[:, None] * t
+                                     + np.sin(phi)[:, None] * b))
+    h32, n32 = h.astype(np.float32), np.broadcast_to(n, h.shape)
+    h64 = h32.astype(np.float64)
+    h64 /= np.linalg.norm(h64, axis=-1, keepdims=True)
+    c = h64 @ n
+    s2 = np.sum(np.cross(n, h64) ** 2, -1)
+    want = alpha ** 2 / (np.pi * (s2 + c * c * alpha ** 2) ** 2)
+    got = np.asarray(bsdf_ops.ggx_d(
+        jnp.float32(alpha), jnp.asarray(n32, jnp.float32), jnp.asarray(h32)))
+    np.testing.assert_allclose(got, want, rtol=2e-3)

@@ -7,10 +7,10 @@ must be bit-identical to an uninterrupted M-spp run.
 
 import numpy as np
 
-from metal_pathtracer_tpu.renderer.headless import TpuBackend
-from metal_pathtracer_tpu.scene import dsl
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer.renderer.headless import JaxBackend
+from metal_pathtracer.scene import dsl
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.settings import RenderSettings
 
 SCENE = """\
 camera target=0,0,-1 distance=3.5 yaw=0 pitch=0 vfov=45
@@ -33,7 +33,7 @@ def _scene():
 def test_resume_bit_identical(tmp_path):
     settings, res = _scene()
     w = h = 16
-    backend = TpuBackend()
+    backend = JaxBackend()
 
     straight = backend.render(res, settings, w, h, 16)
 
@@ -50,7 +50,7 @@ def test_resume_bit_identical(tmp_path):
 def test_resume_noop_when_done(tmp_path):
     settings, res = _scene()
     w = h = 16
-    backend = TpuBackend()
+    backend = JaxBackend()
     ckpt = str(tmp_path / "state.ckpt")
     first = backend.render(res, settings, w, h, 8, checkpoint_path=ckpt)
     again = backend.render(res, settings, w, h, 8, checkpoint_path=ckpt)
@@ -61,10 +61,10 @@ def test_resume_noop_when_done(tmp_path):
 def test_resume_rejects_resolution_mismatch(tmp_path):
     import pytest
 
-    from metal_pathtracer_tpu.renderer.accumulation import CheckpointError
+    from metal_pathtracer.renderer.accumulation import CheckpointError
 
     settings, res = _scene()
-    backend = TpuBackend()
+    backend = JaxBackend()
     ckpt = str(tmp_path / "state.ckpt")
     backend.render(res, settings, 16, 16, 2, checkpoint_path=ckpt)
     with pytest.raises(CheckpointError, match="32x32"):
@@ -74,10 +74,10 @@ def test_resume_rejects_resolution_mismatch(tmp_path):
 def test_resume_rejects_scene_mismatch(tmp_path):
     import pytest
 
-    from metal_pathtracer_tpu.renderer.accumulation import CheckpointError
+    from metal_pathtracer.renderer.accumulation import CheckpointError
 
     settings, res = _scene()
-    backend = TpuBackend()
+    backend = JaxBackend()
     ckpt = str(tmp_path / "state.ckpt")
     backend.render(res, settings, 16, 16, 2, checkpoint_path=ckpt)
 

@@ -3,13 +3,13 @@ reference's PathtraceDebugBuffer ring equivalent)."""
 
 import numpy as np
 
-from metal_pathtracer_tpu import constants as C
-from metal_pathtracer_tpu.ops.camera import build_camera
-from metal_pathtracer_tpu.renderer.debugprobe import probe_pixel
-from metal_pathtracer_tpu.scene import dsl
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer import constants as C
+from metal_pathtracer.ops.camera import build_camera
+from metal_pathtracer.renderer.debugprobe import probe_pixel
+from metal_pathtracer.scene import dsl
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
+from metal_pathtracer.settings import RenderSettings
 
 SCENE = """\
 camera target=0,0,-1 distance=3.5 yaw=0 pitch=0 vfov=45

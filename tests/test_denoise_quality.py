@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.ops.denoise import atrous_denoise, svgf_denoise
-from metal_pathtracer_tpu.scene import dsl
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer.ops.denoise import atrous_denoise, svgf_denoise
+from metal_pathtracer.scene import dsl
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.settings import RenderSettings
 
 CORNELL = """\
 camera target=0,1,0 distance=3.9 yaw=1.5708 pitch=0 vfov=40
@@ -33,10 +33,10 @@ rectangle x=-0.4,0.4 y=1.99 z=-0.4,0.4 normal=-1 material=3
 
 
 def render(settings, res, w, h, spp):
-    from metal_pathtracer_tpu.ops.camera import build_camera
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
+    from metal_pathtracer.ops.camera import build_camera
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
 
     scene = res.build_arrays()
     static = settings_to_static(settings, w, h,
@@ -65,10 +65,10 @@ def cornell_renders():
 def _env_glossy_scene():
     """Env-lit glossy: rough metal + mirror + lambert ground under a
     hot-sun HDR env (alias NEE) — nothing like the trainers' scenes."""
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu.ops import env as env_ops
-    from metal_pathtracer_tpu.scene.resources import Material, Sphere
-    from metal_pathtracer_tpu.settings import BackgroundMode
+    from metal_pathtracer import constants as C
+    from metal_pathtracer.ops import env as env_ops
+    from metal_pathtracer.scene.resources import Material, Sphere
+    from metal_pathtracer.settings import BackgroundMode
 
     settings = RenderSettings()
     settings.cameraTarget = (0.0, 0.5, 0.0)
@@ -102,9 +102,9 @@ def _env_glossy_scene():
 def _textured_dielectric_scene():
     """Textured PBR + glass over a ground plane under the gradient sky —
     caustic-ish dielectric noise plus texture detail to preserve."""
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu.scene.resources import Material
-    from metal_pathtracer_tpu.utils.benchscene import (
+    from metal_pathtracer import constants as C
+    from metal_pathtracer.scene.resources import Material
+    from metal_pathtracer.utils.benchscene import (
         _ground_mesh,
         _sphere_mesh,
         checker_texture,
@@ -133,10 +133,10 @@ def _textured_dielectric_scene():
 
 
 def _render_with_env(settings, res, environment, w, h, spp):
-    from metal_pathtracer_tpu.ops.camera import build_camera
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from metal_pathtracer_tpu.schema import (
+    from metal_pathtracer.ops.camera import build_camera
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.schema import (
         settings_to_static,
         settings_to_uniforms,
     )
@@ -157,9 +157,9 @@ def _gltf_textured_scene(tmp_path):
     lambert ground with a metal sphere for specular noise."""
     import sys
 
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu.scene.gltf import load_gltf_into
-    from metal_pathtracer_tpu.scene.resources import Material, Sphere
+    from metal_pathtracer import constants as C
+    from metal_pathtracer.scene.gltf import load_gltf_into
+    from metal_pathtracer.scene.resources import Material, Sphere
 
     sys.path.insert(0, str(_THIS_DIR))
     from test_gltf import make_quad_glb
@@ -214,8 +214,8 @@ def test_denoisers_generalize_across_scenes(heldout_renders):
     On each additional held-out scene the production tier chain must
     still beat the noisy input by a pinned margin and conserve energy;
     per-scene RMSEs ride the assertion messages."""
-    from metal_pathtracer_tpu.ops import denoise_unet
-    from metal_pathtracer_tpu.ops.denoise import (
+    from metal_pathtracer.ops import denoise_unet
+    from metal_pathtracer.ops.denoise import (
         _learned_params,
         _unet_params,
         learned_denoise,
@@ -307,7 +307,7 @@ def test_learned_beats_svgf(cornell_renders):
     """The learned tap-weight filter (the OIDN-role learned prior; weights
     vendored from tools/train_denoiser.py) must beat the hand-tuned SVGF
     pass on this scene — which is HELD OUT of the training set."""
-    from metal_pathtracer_tpu.ops.denoise import _learned_params, learned_denoise
+    from metal_pathtracer.ops.denoise import _learned_params, learned_denoise
 
     params = _learned_params()
     if params is None:
@@ -331,8 +331,8 @@ def test_unet_beats_learned_taps(cornell_renders):
     vendored from tools/train_denoiser_unet.py) must beat the learned
     tap-weight filter on this scene — which is HELD OUT of training for
     both (never rendered by either trainer, not even for selection)."""
-    from metal_pathtracer_tpu.ops import denoise_unet
-    from metal_pathtracer_tpu.ops.denoise import (
+    from metal_pathtracer.ops import denoise_unet
+    from metal_pathtracer.ops.denoise import (
         _learned_params,
         _unet_params,
         learned_denoise,
@@ -363,7 +363,7 @@ def test_unet_shapes_and_range():
     contract) even with untrained random weights."""
     import jax
 
-    from metal_pathtracer_tpu.ops import denoise_unet
+    from metal_pathtracer.ops import denoise_unet
 
     params = denoise_unet.init_params(jax.random.PRNGKey(3))
     rng = np.random.default_rng(5)
@@ -381,7 +381,7 @@ def test_unet_shapes_and_range():
 def test_variance_of_mean_basics():
     """Second-moment accumulation: variance is zero for a deterministic
     constant signal and positive where samples disagree."""
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
+    from metal_pathtracer.renderer.accumulation import RenderState
     import jax.numpy as jnp
 
     st = RenderState.create(4, 4)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu import constants as C
-from metal_pathtracer_tpu.scene import dsl
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.settings import BackgroundMode, RenderSettings, SssMode
+from metal_pathtracer import constants as C
+from metal_pathtracer.scene import dsl
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.settings import BackgroundMode, RenderSettings, SssMode
 
 
 def parse(text):
@@ -158,7 +158,7 @@ def test_sigma_from_absorption_thickness():
 
 
 def test_radiometric_change_detector():
-    from metal_pathtracer_tpu.settings import detect_radiometric_change
+    from metal_pathtracer.settings import detect_radiometric_change
     a = RenderSettings()
     b = a.copy()
     changed, _ = detect_radiometric_change(a, b)

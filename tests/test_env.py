@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.ops import env as env_ops
+from metal_pathtracer.ops import env as env_ops
 
 
 def test_alias_table_uniform():
@@ -50,14 +50,14 @@ def test_distribution_pdf_integrates_to_one():
 
 def test_sample_environment_hits_hotspot():
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.schema import settings_to_uniforms, settings_to_static
-    from metal_pathtracer_tpu.settings import RenderSettings
-    from metal_pathtracer_tpu.ops.camera import build_camera
+    from metal_pathtracer.schema import settings_to_uniforms, settings_to_static
+    from metal_pathtracer.settings import RenderSettings
+    from metal_pathtracer.ops.camera import build_camera
 
     texels = _synthetic_env()
     mips = env_ops.build_mips(texels)
     (ma, mt, ca, ct, pdf) = env_ops.build_distribution(texels)
-    from metal_pathtracer_tpu.schema import EnvironmentSoA
+    from metal_pathtracer.schema import EnvironmentSoA
     env = EnvironmentSoA(
         texels=jnp.asarray(texels), mips=tuple(jnp.asarray(m) for m in mips),
         marginal_threshold=jnp.asarray(mt),
@@ -95,7 +95,7 @@ def test_sample_environment_hits_hotspot():
 
 def test_environment_pdf_matches_table():
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.schema import EnvironmentSoA
+    from metal_pathtracer.schema import EnvironmentSoA
 
     texels = _synthetic_env()
     (ma, mt, ca, ct, pdf) = env_ops.build_distribution(texels)

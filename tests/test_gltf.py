@@ -9,10 +9,10 @@ import struct
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.scene.gltf import GltfFile, load_gltf_into
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.settings import RenderSettings
-from metal_pathtracer_tpu import constants as C
+from metal_pathtracer.scene.gltf import GltfFile, load_gltf_into
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.settings import RenderSettings
+from metal_pathtracer import constants as C
 
 
 def _png_bytes(rgba: np.ndarray) -> bytes:
@@ -153,7 +153,7 @@ def test_glb_transmission_and_emissive(tmp_path):
 
 def test_texture_arrays_and_sampling():
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops import textures as tex_ops
+    from metal_pathtracer.ops import textures as tex_ops
 
     img = np.zeros((16, 16, 4), np.uint8)
     img[:, :8] = (255, 0, 0, 255)
@@ -181,10 +181,10 @@ def test_texture_arrays_and_sampling():
 def test_gltf_scene_renders_textured(tmp_path):
     """End-to-end: textured glTF quad renders with the texture's colors."""
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops.camera import build_camera
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
+    from metal_pathtracer.ops.camera import build_camera
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
 
     path = make_quad_glb(tmp_path, with_texture=True)
     settings = RenderSettings()

@@ -34,7 +34,7 @@ GOLDEN_SHA256 = \
 
 
 def _render(tmpdir: str) -> bytes:
-    from metal_pathtracer_tpu import cli
+    from metal_pathtracer import cli
 
     scene_path = os.path.join(tmpdir, "smoke.scene")
     out_path = os.path.join(tmpdir, "smoke.ppm")

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.utils import image_io
+from metal_pathtracer.utils import image_io
 
 
 @pytest.fixture

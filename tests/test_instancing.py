@@ -5,13 +5,13 @@ per-instance transforms (reference: SceneAccel.mm SoftwareInstanceInfo
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.ops.camera import build_camera
-from metal_pathtracer_tpu.renderer import frame
-from metal_pathtracer_tpu.renderer.accumulation import RenderState
-from metal_pathtracer_tpu.scene.resources import Material, Mesh, SceneResources
-from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
-from metal_pathtracer_tpu.settings import RenderSettings
-from metal_pathtracer_tpu.utils.procgen import dragon_class_mesh
+from metal_pathtracer.ops.camera import build_camera
+from metal_pathtracer.renderer import frame
+from metal_pathtracer.renderer.accumulation import RenderState
+from metal_pathtracer.scene.resources import Material, Mesh, SceneResources
+from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
+from metal_pathtracer.settings import RenderSettings
+from metal_pathtracer.utils.procgen import dragon_class_mesh
 
 
 def _source_mesh(material=0):
@@ -113,8 +113,8 @@ def test_instanced_self_hit_exclusion_and_shadows():
 
 
 def test_instanced_dsl_token(tmp_path):
-    from metal_pathtracer_tpu.scene import dsl
-    from metal_pathtracer_tpu.scene.meshload import mesh_loader
+    from metal_pathtracer.scene import dsl
+    from metal_pathtracer.scene.meshload import mesh_loader
 
     obj = tmp_path / "tri.obj"
     obj.write_text("v -1 0 -1\nv 1 0 -1\nv 0 1 -1\nf 1 2 3\n")
@@ -136,13 +136,13 @@ mesh path={obj} material=0 instanced=1 translate=0.8,0,0 scale=0.5
 
 
 @pytest.mark.skipif(
-    not __import__("metal_pathtracer_tpu.renderer.oracle",
+    not __import__("metal_pathtracer.renderer.oracle",
                    fromlist=["oracle_available"]).oracle_available(),
     reason="native oracle not built")
 def test_instanced_matches_oracle():
-    """Cross-implementation gate: the instanced TPU path vs the oracle
+    """Cross-implementation gate: the instanced JAX path vs the oracle
     (which bakes instances into world space independently)."""
-    from metal_pathtracer_tpu.renderer import oracle
+    from metal_pathtracer.renderer import oracle
 
     settings = _settings()
     src = _source_mesh()

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.scene import meshbuild
-from metal_pathtracer_tpu.scene.resources import Mesh, SceneResources
+from metal_pathtracer.scene import meshbuild
+from metal_pathtracer.scene.resources import Mesh, SceneResources
 
 
 def random_tris(n, seed=0, spread=10.0):
@@ -52,139 +52,10 @@ def test_native_builder_invariants():
     check_bvh_invariants(nodes, 513)
 
 
-def _mixed_scale_tris():
-    """Small-grid floor + large diagonal triangles: the mixed-scale case
-    spatial splits exist for (a big triangle's AABB overlaps everything)."""
-    rng = np.random.default_rng(1)
-    xs, ys = np.meshgrid(np.arange(20), np.arange(20))
-    gx = xs.ravel().astype(np.float32)
-    gy = ys.ravel().astype(np.float32)
-    v0s = np.stack([gx, gy, np.zeros_like(gx)], 1)
-    v1s = v0s + np.asarray([0.9, 0, 0], np.float32)
-    v2s = v0s + np.asarray([0, 0.9, 0], np.float32)
-    m = 25
-    a = rng.uniform(0, 20, (m, 2)).astype(np.float32)
-    b = rng.uniform(0, 20, (m, 2)).astype(np.float32)
-    v0b = np.concatenate([a, np.full((m, 1), 0.5, np.float32)], 1)
-    v1b = np.concatenate([b, np.full((m, 1), 0.6, np.float32)], 1)
-    v2b = v0b + np.asarray([0.2, 0.2, 0.3], np.float32)
-    return (np.concatenate([v0s, v0b]), np.concatenate([v1s, v1b]),
-            np.concatenate([v2s, v2b]))
-
-
-def _sah_cost(nodes):
-    bmn, bmx = nodes["bounds_min"], nodes["bounds_max"]
-    cnt = nodes["prim_count"]
-    ext = np.clip(bmx - bmn, 0, None)
-    area = 2 * (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
-                + ext[:, 0] * ext[:, 2])
-    return (area[cnt == 0].sum()
-            + (area[cnt > 0] * cnt[cnt > 0]).sum()) / area[0]
-
-
-def _sbvh_nodes(v0, v1, v2, max_leaf):
-    from metal_pathtracer_tpu.scene import packetbvh
-
-    lib = meshbuild._native_lib()
-    if lib is None or not hasattr(lib, "build_bvh_sbvh"):
-        pytest.skip("native SBVH builder not built (run native/build.sh)")
-    return packetbvh._native_nodes_sbvh(lib, v0, v1, v2, max_leaf)
-
-
-def test_sbvh_invariants_allow_duplicates():
-    v0, v1, v2 = _mixed_scale_tris()
-    n = v0.shape[0]
-    nodes = _sbvh_nodes(v0, v1, v2, 16)
-    n_nodes = len(nodes["prim_count"])
-    assert (nodes["exit_index"] > np.arange(n_nodes)).all()
-    assert nodes["exit_index"].max() == n_nodes
-    leaf = nodes["prim_count"] > 0
-    seen = []
-    for off, cnt in zip(nodes["prim_offset"][leaf],
-                        nodes["prim_count"][leaf]):
-        ids = nodes["prim_indices"][off:off + cnt]
-        # no duplicate of one triangle within a single leaf
-        assert len(set(ids.tolist())) == cnt
-        seen.extend(ids)
-    # every triangle referenced at least once; duplication within budget
-    assert set(seen) == set(range(n))
-    assert len(seen) <= int(n * 1.35) + 64
-    assert nodes["prim_count"].max() <= 16
-    internal = np.nonzero(~leaf)[0]
-    for i in internal:
-        child = i + 1
-        assert (nodes["bounds_min"][child]
-                >= nodes["bounds_min"][i] - 1e-5).all()
-        assert (nodes["bounds_max"][child]
-                <= nodes["bounds_max"][i] + 1e-5).all()
-
-
-def test_sbvh_cuts_mixed_scale_cost():
-    """The point of spatial splits: SAH cost (expected tests per ray) must
-    drop materially on the mixed-scale scene vs the object-split builder."""
-    from metal_pathtracer_tpu.scene import packetbvh
-
-    v0, v1, v2 = _mixed_scale_tris()
-    lib = meshbuild._native_lib()
-    if lib is None or not hasattr(lib, "build_bvh_sbvh"):
-        pytest.skip("native SBVH builder not built")
-    sah = packetbvh._native_nodes(lib, v0, v1, v2, 16)
-    sbvh = packetbvh._native_nodes_sbvh(lib, v0, v1, v2, 16)
-    assert _sah_cost(sah) / _sah_cost(sbvh) > 1.3
-
-
-def test_sbvh_traversal_matches_brute_force():
-    """Duplicated clipped references must be invisible in the hits: the
-    exit-link traversal over SBVH nodes equals brute-force Möller–Trumbore
-    (same contract the object-split tree satisfies)."""
-    import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops import traversal
-    from metal_pathtracer_tpu.schema import BvhSoA
-
-    v0, v1, v2 = _mixed_scale_tris()
-    # leaf width must not exceed the jnp traversal's static MAX_LEAF slots
-    nodes = _sbvh_nodes(v0, v1, v2, meshbuild.MAX_LEAF)
-    scene = _scene_with_tris(v0, v1, v2, "numpy")
-    j = jnp.asarray
-    scene = scene.replace(tri_bvh=BvhSoA(
-        bounds_min=j(nodes["bounds_min"]), bounds_max=j(nodes["bounds_max"]),
-        prim_offset=j(nodes["prim_offset"]),
-        prim_count=j(nodes["prim_count"]),
-        exit_index=j(nodes["exit_index"]),
-        prim_indices=j(nodes["prim_indices"])))
-
-    rng = np.random.default_rng(5)
-    origins = rng.uniform(-5, 25, size=(256, 3)).astype(np.float32)
-    dirs = rng.normal(size=(256, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-
-    rec = traversal.trace_triangles(j(origins), j(dirs), scene, 1e-3, 1e20)
-    want_t, want_tri = brute_force_hits(origins, dirs, v0, v1, v2)
-    want_hit = np.isfinite(want_t)
-    np.testing.assert_array_equal(np.asarray(rec.hit), want_hit)
-    np.testing.assert_allclose(np.asarray(rec.t)[want_hit],
-                               want_t[want_hit], rtol=1e-4)
-
-
-def test_packet_bvh_sbvh_matches_object_split(monkeypatch):
-    """build_packet_bvh with the default SBVH nodes packs valid chunks and
-    the chunk contents cover every triangle (duplicates allowed)."""
-    from metal_pathtracer_tpu.scene import packetbvh
-
-    v0, v1, v2 = _mixed_scale_tris()
-    if meshbuild._native_lib() is None:
-        pytest.skip("native builder not built")
-    bvh = packetbvh.build_packet_bvh(v0, v1, v2)
-    tris = np.asarray(bvh.chunk_tris)
-    valid = tris[:, 11, :] > 0.5
-    ids = tris[:, 10, :][valid].astype(np.int64)
-    assert set(ids.tolist()) == set(range(v0.shape[0]))
-
-
 def _scene_with_tris(v0, v1, v2, builder="auto"):
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.schema import BvhSoA, SceneArrays, TrianglesSoA
-    from metal_pathtracer_tpu.scene.resources import Material
+    from metal_pathtracer.schema import BvhSoA, SceneArrays, TrianglesSoA
+    from metal_pathtracer.scene.resources import Material
 
     n = v0.shape[0]
     if builder == "numpy":
@@ -237,7 +108,7 @@ def brute_force_hits(origins, dirs, v0, v1, v2, t_min=1e-3, t_max=1e20):
 @pytest.mark.parametrize("builder", ["numpy", "auto"])
 def test_traversal_matches_brute_force(builder):
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops import traversal
+    from metal_pathtracer.ops import traversal
 
     v0, v1, v2 = random_tris(200, seed=11, spread=5.0)
     scene = _scene_with_tris(v0, v1, v2, builder)
@@ -263,7 +134,7 @@ def test_traversal_matches_brute_force(builder):
 
 def test_exclusion_skips_self():
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops import traversal
+    from metal_pathtracer.ops import traversal
 
     # Two parallel triangles stacked in z; exclude the nearer one.
     v0 = np.array([[0, 0, 1], [0, 0, 2]], np.float32)
@@ -300,7 +171,7 @@ f 5 1 4 8
 
 
 def test_obj_loader(tmp_path):
-    from metal_pathtracer_tpu.scene.obj import load_obj
+    from metal_pathtracer.scene.obj import load_obj
     p = tmp_path / "cube.obj"
     p.write_text(CUBE_OBJ)
     mesh = load_obj(str(p))
@@ -312,7 +183,7 @@ def test_obj_loader(tmp_path):
 
 
 def test_obj_loader_transform(tmp_path):
-    from metal_pathtracer_tpu.scene.obj import load_obj
+    from metal_pathtracer.scene.obj import load_obj
     p = tmp_path / "cube.obj"
     p.write_text(CUBE_OBJ)
     tf = np.eye(4)
@@ -324,7 +195,7 @@ def test_obj_loader_transform(tmp_path):
 
 
 def test_ply_loader_ascii(tmp_path):
-    from metal_pathtracer_tpu.scene.ply import load_ply
+    from metal_pathtracer.scene.ply import load_ply
     ply = """\
 ply
 format ascii 1.0
@@ -349,7 +220,7 @@ end_header
 
 def test_ply_loader_binary(tmp_path):
     import struct
-    from metal_pathtracer_tpu.scene.ply import load_ply
+    from metal_pathtracer.scene.ply import load_ply
     header = (b"ply\nformat binary_little_endian 1.0\n"
               b"element vertex 3\n"
               b"property float x\nproperty float y\nproperty float z\n"
@@ -370,13 +241,13 @@ def test_mesh_render_end_to_end(tmp_path):
     """A mesh quad acts like the rectangle it covers: render a scene where
     a big emissive-lit triangle floor is visible."""
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops.camera import build_camera
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from metal_pathtracer_tpu.scene import dsl
-    from metal_pathtracer_tpu.scene.meshload import mesh_loader
-    from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
-    from metal_pathtracer_tpu.settings import RenderSettings
+    from metal_pathtracer.ops.camera import build_camera
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.scene import dsl
+    from metal_pathtracer.scene.meshload import mesh_loader
+    from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
+    from metal_pathtracer.settings import RenderSettings
 
     obj = tmp_path / "quad.obj"
     obj.write_text("v -5 0 -5\nv 5 0 -5\nv 5 0 5\nv -5 0 5\nf 1 2 3 4\n")
@@ -403,95 +274,3 @@ mesh path={obj} material=0
     # Looking down at a red floor: center pixel clearly red-dominant
     assert center[0] > center[2]
     assert center[0] > 0.05
-
-
-def test_packet_bvh_node_budget_split(monkeypatch):
-    """Node-budget fallback: oversized SAH leaves split into multiple
-    256-slot chunks — the kernel's CHUNK/PLANES tile shape must never
-    grow (ADVICE r02), and every triangle lands in exactly one slot.
-    Pinned to the object-split builder: the exactly-once and
-    tris-inside-leaf-bounds invariants below are its contract (SBVH
-    deliberately duplicates references with clipped bounds)."""
-    from metal_pathtracer_tpu.scene import packetbvh
-
-    monkeypatch.setenv("MPT_SBVH", "0")
-    v0, v1, v2 = random_tris(3000, seed=11)
-    monkeypatch.setattr(packetbvh, "NODE_BUDGET", 16)
-    bvh = packetbvh.build_packet_bvh(v0, v1, v2)
-
-    assert bvh.chunk_tris.shape[1:] == (packetbvh.PLANES, packetbvh.CHUNK)
-    tris = np.asarray(bvh.chunk_tris)
-    valid = tris[:, 11, :] > 0.5
-    ids = tris[:, 10, :][valid].astype(np.int64)
-    assert sorted(ids.tolist()) == list(range(3000))
-    # binary tree references every chunk exactly once via its leaves
-    meta = np.asarray(bvh.node_meta)
-    leaf_chunks = meta[0][meta[1] > 0]
-    assert sorted(leaf_chunks.tolist()) == list(range(bvh.n_chunks))
-    # wide tree references every chunk exactly once too
-    wchild = np.asarray(bvh.wnode_child)
-    wide_chunks = (-wchild[wchild <= -2] - 2).tolist()
-    assert sorted(wide_chunks) == list(range(bvh.n_chunks))
-    # chunk triangles sit inside the referencing leaf's bounds
-    bounds = np.asarray(bvh.node_bounds)
-    for leaf in np.nonzero(meta[1] > 0)[0]:
-        ci = meta[0][leaf]
-        m = valid[ci]
-        pts = np.concatenate([
-            tris[ci, 0:3, m >= 1].reshape(-1, 3),
-            (tris[ci, 0:3] + tris[ci, 3:6])[:, m].T,
-            (tris[ci, 0:3] + tris[ci, 6:9])[:, m].T])
-        assert (pts.min(0) >= bounds[0:3, leaf] - 1e-3).all()
-        assert (pts.max(0) <= bounds[3:6, leaf] + 1e-3).all()
-
-
-def test_packet_bvh_split_hits_match_unsplit(monkeypatch):
-    """Brute-force closest-hit equality between the budget-split tree and
-    the default tree, via the XLA reference traversal over chunks."""
-    from metal_pathtracer_tpu.scene import packetbvh
-
-    v0, v1, v2 = random_tris(1200, seed=13)
-    ref = packetbvh.build_packet_bvh(v0, v1, v2)
-    monkeypatch.setattr(packetbvh, "NODE_BUDGET", 8)
-    calls = []
-    real_split = packetbvh._split_oversized_leaves
-    monkeypatch.setattr(
-        packetbvh, "_split_oversized_leaves",
-        lambda *a: calls.append(1) or real_split(*a))
-    split = packetbvh.build_packet_bvh(v0, v1, v2)
-    assert calls  # the budget fallback + re-split actually engaged
-
-    rng = np.random.default_rng(17)
-    o = rng.uniform(-12, 12, size=(64, 3)).astype(np.float32)
-    d = rng.normal(size=(64, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-
-    def closest(bvh):
-        tris = np.asarray(bvh.chunk_tris)
-        tv0 = tris[:, 0:3].transpose(0, 2, 1).reshape(-1, 3)
-        e1 = tris[:, 3:6].transpose(0, 2, 1).reshape(-1, 3)
-        e2 = tris[:, 6:9].transpose(0, 2, 1).reshape(-1, 3)
-        tid = tris[:, 10].reshape(-1)
-        ok = tris[:, 11].reshape(-1) > 0.5
-        best_t = np.full(len(o), np.inf)
-        best_id = np.full(len(o), -1)
-        for i in range(len(o)):
-            p = np.cross(np.broadcast_to(d[i], e2.shape), e2)
-            det = (e1 * p).sum(1)
-            s = o[i] - tv0
-            u = (s * p).sum(1) / np.where(np.abs(det) < 1e-12, 1, det)
-            q = np.cross(s, e1)
-            vv = (d[i] * q).sum(1) / np.where(np.abs(det) < 1e-12, 1, det)
-            t = (e2 * q).sum(1) / np.where(np.abs(det) < 1e-12, 1, det)
-            hit = (ok & (np.abs(det) > 1e-12) & (u >= 0) & (vv >= 0)
-                   & (u + vv <= 1) & (t > 1e-4))
-            if hit.any():
-                j = np.nonzero(hit)[0][np.argmin(t[hit])]
-                best_t[i] = t[j]
-                best_id[i] = tid[j]
-        return best_t, best_id
-
-    t_ref, id_ref = closest(ref)
-    t_split, id_split = closest(split)
-    np.testing.assert_allclose(t_split, t_ref, rtol=1e-5)
-    np.testing.assert_array_equal(id_split, id_ref)

@@ -8,9 +8,9 @@ import jax
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.parallel import mesh as mesh_ops
-from metal_pathtracer_tpu.renderer.accumulation import RenderState
-from metal_pathtracer_tpu.renderer.frame import render_samples
+from metal_pathtracer.parallel import mesh as mesh_ops
+from metal_pathtracer.renderer.accumulation import RenderState
+from metal_pathtracer.renderer.frame import render_samples
 
 
 def _build(width, height):
@@ -91,7 +91,7 @@ def test_sharded_bench_class_scene():
     # vs outside shard_map (measured max 5.7e-5 on radiance ~2.0), while
     # a row-offset/RNG bug would diverge by O(1). The toy scene above
     # stays bit-exact.
-    from metal_pathtracer_tpu.renderer.frame import render_rows
+    from metal_pathtracer.renderer.frame import render_rows
     rows_per_dev = height // 8
     slabs = []
     for d in range(8):

@@ -12,20 +12,20 @@ import os
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.renderer import oracle
-from metal_pathtracer_tpu.scene import dsl
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer.renderer import oracle
+from metal_pathtracer.scene import dsl
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.settings import RenderSettings
 
 pytestmark = pytest.mark.skipif(not oracle.oracle_available(),
                                 reason="native oracle not built")
 
 
 def render_jax(settings, resources, width, height, spp, environment=None):
-    from metal_pathtracer_tpu.ops.camera import build_camera
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
+    from metal_pathtracer.ops.camera import build_camera
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
 
     scene = resources.build_arrays(environment=environment)
     static = settings_to_static(settings, width, height,
@@ -97,6 +97,23 @@ def test_cornell_box_rmse():
     assert abs(img_jax.mean() - img_oracle.mean()) < 0.005
 
 
+def test_cornell_asset_mirror_glass_rmse():
+    """The bundled cornell box with its roughness-0.02 mirror and glass
+    spheres: GGX D at half vectors within ulps of the normal once drew
+    implementation-dependent fireflies (RMSE 0.25 vs the oracle)."""
+    settings = RenderSettings()
+    res = SceneResources()
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets", "scenes", "cornell.scene")
+    dsl.load_scene_file(path, settings, res)
+    w = h = 48
+    spp = 16
+    img_jax = render_jax(settings, res, w, h, spp)
+    img_oracle = oracle.render_oracle(res, settings, w, h, spp)
+    assert oracle.rmse(img_jax, img_oracle) < 0.02
+    assert abs(img_jax.mean() - img_oracle.mean()) < 0.005
+
+
 GLASS = """\
 camera target=0,0,-1 distance=3 yaw=0 pitch=0 vfov=45
 renderer maxDepth=8 seed=3
@@ -133,7 +150,7 @@ mesh path={obj} material=0
 """
     settings = RenderSettings()
     res = SceneResources()
-    from metal_pathtracer_tpu.scene.meshload import mesh_loader
+    from metal_pathtracer.scene.meshload import mesh_loader
     dsl.parse_scene(text, settings, res, scene_directory=str(tmp_path),
                     mesh_loader=mesh_loader)
     w = h = 32
@@ -149,8 +166,8 @@ def test_pbr_scene_rmse():
     rough transmission lobes vs the oracle's independent C++ implementation
     (reference: pathtrace.metal evaluate/sample_pbr_metallic_roughness
     :4632-4945)."""
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu.scene.resources import Material
+    from metal_pathtracer import constants as C
+    from metal_pathtracer.scene.resources import Material
 
     settings = RenderSettings()
     settings.maxDepth = 6
@@ -273,9 +290,9 @@ def test_sss_random_walk_rmse():
 
 def test_env_scene_rmse():
     import jax.numpy as jnp
-    from metal_pathtracer_tpu.ops import env as env_ops
-    from metal_pathtracer_tpu.schema import EnvironmentSoA
-    from metal_pathtracer_tpu.settings import BackgroundMode
+    from metal_pathtracer.ops import env as env_ops
+    from metal_pathtracer.schema import EnvironmentSoA
+    from metal_pathtracer.settings import BackgroundMode
 
     texels = np.full((16, 32, 3), 0.2, np.float32)
     texels[3:6, 6:10] = (8.0, 6.0, 3.0)  # warm hotspot
@@ -347,13 +364,13 @@ def test_mnee_chain_rmse():
 
 def test_textured_pbr_base_color_rmse():
     """Base-color texture sampling parity: a textured PBR quad rendered by
-    the TPU path (ops/pbr_textures.py slot 0 + ops/textures.py bilinear
+    the JAX path (ops/pbr_textures.py slot 0 + ops/textures.py bilinear
     pool) vs the oracle's independent C++ sampler (cpu_oracle.cpp
-    sample_base_tex). A smooth gradient texture keeps the TPU's mip/LOD
+    sample_base_tex). A smooth gradient texture keeps the JAX path's mip/LOD
     selection and the oracle's LOD-0 bilinear within the RMSE gate
     (box-filtered mips preserve linear ramps)."""
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu.scene.resources import Material, Mesh
+    from metal_pathtracer import constants as C
+    from metal_pathtracer.scene.resources import Material, Mesh
 
     settings = RenderSettings()
     settings.maxDepth = 4
@@ -435,10 +452,10 @@ def test_textured_pbr_full_slots_match_oracle():
     """Full texture-slot parity: base + ORM + normal + occlusion + emissive
     all sampled by BOTH implementations (the oracle gained the non-base
     slots in r03 — VERDICT r02 weak #4/missing item). Flat quad so the
-    oracle's geometric-normal base equals the TPU's interpolated one; the
+    oracle's geometric-normal base equals the JAX path's interpolated one; the
     gate also asserts the ORM and normal maps actually change the image."""
-    from metal_pathtracer_tpu import constants as C
-    from metal_pathtracer_tpu.scene.resources import Material, Mesh
+    from metal_pathtracer import constants as C
+    from metal_pathtracer.scene.resources import Material, Mesh
 
     settings = RenderSettings()
     settings.maxDepth = 3
@@ -468,10 +485,10 @@ def test_textured_pbr_full_slots_match_oracle():
     base_t = add_tex(np.stack([0.3 + 0.6 * xx, 0.8 - 0.5 * yy,
                                0.5 + 0 * xx], -1), srgb=True)
     # ORM: G = roughness ramp, B = metallic ramp (mip-stable; a step
-    # would diverge between the oracle's LOD-0 and the TPU's cone LOD)
+    # would diverge between the oracle's LOD-0 and the JAX path's cone LOD)
     orm_t = add_tex(np.stack([np.ones_like(xx), 0.55 + 0.4 * xx,
                               0.6 * yy], -1))
-    # normal: gentle LINEAR tilt ramps (the oracle samples LOD 0; the TPU
+    # normal: gentle LINEAR tilt ramps (the oracle samples LOD 0; the JAX path
     # samples cone-LOD mips — box mips of a linear ramp stay the ramp, so
     # the two see the same map; high-frequency bumps would not)
     nx = 0.25 * (2.0 * xx - 1.0)
@@ -486,7 +503,7 @@ def test_textured_pbr_full_slots_match_oracle():
     em_t = add_tex(np.stack([em, 0.6 * em, 0.2 * em], -1), srgb=True)
 
     # diffuse-dominant: tilted-normal SPECULAR lobes amplify the mip-
-    # filtering delta between the oracle's LOD-0 and the TPU's cone LOD
+    # filtering delta between the oracle's LOD-0 and the JAX path's cone LOD
     # far past the MC floor; the diffuse response still shows every slot
     mat = res.add_material(Material(
         base_color=(0.95, 0.95, 0.95), roughness=0.9,

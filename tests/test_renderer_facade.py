@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.renderer.renderer import Renderer
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer.renderer.renderer import Renderer
+from metal_pathtracer.settings import RenderSettings
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +67,7 @@ def test_export_and_checkpoint(tmp_path, renderer):
 
     exr = tmp_path / "out.exr"
     renderer.save_exr(str(exr))
-    from metal_pathtracer_tpu.utils import image_io
+    from metal_pathtracer.utils import image_io
     ch = image_io.read_exr(str(exr))
     assert "SAMPLES" in ch
     assert ch["SAMPLES"].max() == renderer.sample_count()
@@ -89,7 +89,7 @@ def test_display_and_denoise(renderer):
     assert 0.0 <= ldr.min() and ldr.max() <= 1.0
     renderer.settings.bloomEnabled = False
 
-    from metal_pathtracer_tpu.ops.denoise import denoise_state
+    from metal_pathtracer.ops.denoise import denoise_state
     den = np.asarray(denoise_state(renderer.state, renderer.settings))
     assert den.shape == (24, 24, 3)
     assert np.isfinite(den).all()
@@ -100,17 +100,23 @@ def test_display_and_denoise(renderer):
     assert local_var(den) <= local_var(noisy) * 1.05
 
 
-def test_tpu_backend_falls_back_on_init_failure(monkeypatch, capsys):
-    """SURVEY §5.3 failure fallback (the reference's HWRT->SWRT graceful
-    degrade): accelerator init failure degrades to jax-CPU, loudly."""
+def test_gpu_backend_raises_on_init_failure(monkeypatch, capsys):
+    """An accelerator that fails to start is an error: make_backend raises
+    and the CLI exits non-zero, instead of rendering on the CPU."""
     import jax
 
-    from metal_pathtracer_tpu.renderer import headless
+    from metal_pathtracer import cli
+    from metal_pathtracer.renderer import headless
 
-    def boom():
-        raise RuntimeError("libtpu version mismatch")
+    def boom(*_a, **_k):
+        raise RuntimeError("no CUDA device")
 
     monkeypatch.setattr(jax, "devices", boom)
-    backend = headless.make_backend("tpu")
-    assert isinstance(backend, headless.CpuJaxBackend)
-    assert "falling back" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        headless.make_backend("gpu")
+    with pytest.raises(RuntimeError):
+        headless.make_backend("metal")
+    rc = cli.main(["--width", "8", "--height", "8", "--sppTotal", "1",
+                   "--backend", "gpu", "--output", "/dev/null"])
+    assert rc != 0
+    assert "failed to initialize" in capsys.readouterr().err

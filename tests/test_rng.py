@@ -8,7 +8,7 @@ determinism depends on it (SURVEY.md §5.8).
 import numpy as np
 import jax.numpy as jnp
 
-from metal_pathtracer_tpu.ops import rng
+from metal_pathtracer.ops import rng
 
 
 def ref_pcg_hash(state: int) -> int:

@@ -9,13 +9,13 @@ pins our own golden statistics.
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.ops.camera import build_camera
-from metal_pathtracer_tpu.renderer import frame
-from metal_pathtracer_tpu.renderer.accumulation import RenderState
-from metal_pathtracer_tpu.scene import dsl
-from metal_pathtracer_tpu.scene.resources import SceneResources
-from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer.ops.camera import build_camera
+from metal_pathtracer.renderer import frame
+from metal_pathtracer.renderer.accumulation import RenderState
+from metal_pathtracer.scene import dsl
+from metal_pathtracer.scene.resources import SceneResources
+from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
+from metal_pathtracer.settings import RenderSettings
 
 SMOKE = """\
 camera target=0,0,-1 distance=3.5 yaw=0 pitch=0 vfov=45 defocusAngle=0.0 focusDist=3.5

@@ -8,8 +8,8 @@ kSpecularNeePdfFloor / kSpecularNeeInvPdfClamp
 import numpy as np
 import jax.numpy as jnp
 
-from metal_pathtracer_tpu import constants as C
-from metal_pathtracer_tpu.ops import specnee
+from metal_pathtracer import constants as C
+from metal_pathtracer.ops import specnee
 
 
 def mis_np(light_pdf, bsdf_pdf):

@@ -3,7 +3,7 @@ reference: include/renderer/PerformanceStats.h:12-114)."""
 
 import logging
 
-from metal_pathtracer_tpu.utils import stats
+from metal_pathtracer.utils import stats
 
 
 def test_perf_stats_derivations():

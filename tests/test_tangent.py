@@ -8,7 +8,7 @@ normal mapping is defined against it. VERDICT r01 missing #2.
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.scene import tangent
+from metal_pathtracer.scene import tangent
 
 
 def quad_mesh():

@@ -4,18 +4,18 @@
 import numpy as np
 import jax.numpy as jnp
 
-from metal_pathtracer_tpu.ops import intersect
-from metal_pathtracer_tpu.ops.camera import build_camera
-from metal_pathtracer_tpu.ops.pbr_textures import _igehy_uv_gradient
-from metal_pathtracer_tpu.scene.resources import Material, SceneResources
-from metal_pathtracer_tpu.schema import settings_to_static, settings_to_uniforms
-from metal_pathtracer_tpu.settings import RenderSettings
+from metal_pathtracer.ops import intersect
+from metal_pathtracer.ops.camera import build_camera
+from metal_pathtracer.ops.pbr_textures import _igehy_uv_gradient
+from metal_pathtracer.scene.resources import Material, SceneResources
+from metal_pathtracer.schema import settings_to_static, settings_to_uniforms
+from metal_pathtracer.settings import RenderSettings
 
 
 def _quad_scene():
     res = SceneResources()
     res.add_material(Material(base_color=(0.5, 0.5, 0.5)))
-    from metal_pathtracer_tpu.scene.resources import Mesh
+    from metal_pathtracer.scene.resources import Mesh
     # unit quad at z=-1, facing +z, uv spanning [0,1]^2
     v = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1]],
                  np.float32)

@@ -9,8 +9,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from metal_pathtracer_tpu.renderer.renderer import Renderer
-from metal_pathtracer_tpu.viewer.server import ViewerServer
+from metal_pathtracer.renderer.renderer import Renderer
+from metal_pathtracer.viewer.server import ViewerServer
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_progressive_loop_and_png(viewer):
 
 def test_index_page(viewer):
     page = _get(viewer, "/")
-    assert b"metal-pathtracer-tpu" in page
+    assert b"metal-pathtracer" in page
     assert b"/frame.png" in page
 
 
@@ -102,7 +102,7 @@ def test_orbit_and_pause(viewer):
 def test_motion_preview_policy(viewer):
     """During camera motion the loop renders 1-spp passes at preview
     scale (reference: MetalRenderer.mm:906-956 drops samplesPerFrame to
-    1 under motion; the TPU analogue also halves resolution); once the
+    1 under motion; this viewer also halves resolution); once the
     0.25 s hold expires and smoothing converges, full resolution and
     progressive accumulation resume with reset reason CAMERA."""
     # earlier tests may leave a preview still easing toward its target;

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
-"""Time the denoiser tiers at 1080p on-chip (VERDICT r05 item #7: "is
-the U-Net cheap at 1080p?"). Synthetic HDR inputs — the cost is
-shape-dependent only. Median of 5 after warm; jnp.sum fetch per the
-measurement rules (BENCHMARKS.md)."""
+"""Time the denoiser tiers at 1080p on the device. Synthetic HDR inputs
+— the cost is shape-dependent only. Median of 5 after warm-up, each call
+ended with block_until_ready."""
 
 import os
 import sys
@@ -12,7 +11,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from metal_pathtracer_tpu.utils.compilecache import enable_cache
+from metal_pathtracer.utils.compilecache import enable_cache
 
 enable_cache()
 
@@ -23,12 +22,12 @@ def timeit(label, fn, *args):
 
     f = jax.jit(lambda *a: jnp.sum(fn(*a)))
     t0 = time.time()
-    float(f(*args))
+    f(*args).block_until_ready()
     compile_s = time.time() - t0
     ts = []
     for _ in range(5):
         t0 = time.time()
-        float(f(*args))
+        f(*args).block_until_ready()
         ts.append(time.time() - t0)
     ts.sort()
     print(f"{label:28s} {ts[len(ts)//2]*1e3:8.1f} ms @1080p "
@@ -38,9 +37,9 @@ def timeit(label, fn, *args):
 def main():
     import jax.numpy as jnp
 
-    from metal_pathtracer_tpu.ops import denoise
-    from metal_pathtracer_tpu.ops.denoise import _learned_params, _unet_params
-    from metal_pathtracer_tpu.ops import denoise_unet
+    from metal_pathtracer.ops import denoise
+    from metal_pathtracer.ops.denoise import _learned_params, _unet_params
+    from metal_pathtracer.ops import denoise_unet
 
     rng = np.random.default_rng(0)
     h, w = 1080, 1920

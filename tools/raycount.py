@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Per-sample closest vs shadow ray split on the headline scene, for the
-BENCHMARKS round-5 budget table (the bench headline only prints the sum).
+"""Per-sample closest vs shadow ray split on the headline scene (the bench
+headline only prints the sum). Usage: python tools/raycount.py [spp]
 """
 
 import os
@@ -10,19 +10,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from metal_pathtracer_tpu.utils.compilecache import enable_cache
+from metal_pathtracer.utils.compilecache import enable_cache
 
 enable_cache()
 
 
 def main():
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from tools.abbench import build_bench_scene
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.utils.benchscene import build_bench_scene, \
+        frame_inputs
 
-    os.environ["AB_SCENE"] = "headline"
-    spp = int(os.environ.get("AB_SPP", "2"))
-    scene, uniforms, static = build_bench_scene(1920, 1080, depth=8)
+    spp = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+    scene, static, uniforms = frame_inputs(*build_bench_scene(8), 1920, 1080)
     state = RenderState.create(static.width, static.height)
     state = frame.render_samples(scene, uniforms, state, static, spp)
     closest = float(np.asarray(state.ray_count)) / spp

@@ -5,7 +5,7 @@ Renders a small set of procedural training scenes (NOT the quality-gate
 cornell scene — that one is held out by tests/test_denoise_quality.py) at
 16 spp with AOVs + variance, plus 512-spp references, then optimizes the
 ~300-parameter MLP end-to-end through the 4-iteration à-trous filter with
-Adam on relative-MSE. Writes metal_pathtracer_tpu/data/denoiser_weights.npz.
+Adam on relative-MSE. Writes metal_pathtracer/data/denoiser_weights.npz.
 
 Trains through BOTH iteration counts denoise_state can run (4 and 5).
 Runs on CPU in ~40 minutes: `python tools/train_denoiser.py`.
@@ -27,10 +27,10 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from metal_pathtracer_tpu.ops import denoise  # noqa: E402
-from metal_pathtracer_tpu.scene import dsl  # noqa: E402
-from metal_pathtracer_tpu.scene.resources import SceneResources  # noqa: E402
-from metal_pathtracer_tpu.settings import RenderSettings  # noqa: E402
+from metal_pathtracer.ops import denoise  # noqa: E402
+from metal_pathtracer.scene import dsl  # noqa: E402
+from metal_pathtracer.scene.resources import SceneResources  # noqa: E402
+from metal_pathtracer.settings import RenderSettings  # noqa: E402
 
 W = H = 64
 SPP_IN = 16
@@ -41,7 +41,7 @@ STEPS = 600
 def _env_scene(subdivisions=2):
     """A toy bench-class scene: HDR sun/sky env alias NEE + dielectric +
     lambert — the noise character the headline/viewer scenes have."""
-    from metal_pathtracer_tpu.utils.benchscene import build_bench_scene
+    from metal_pathtracer.utils.benchscene import build_bench_scene
 
     settings, res, environment = build_bench_scene(subdivisions)
     settings.maxDepth = 5
@@ -128,10 +128,10 @@ rectangle x=-3,3 y=0 z=-3,3 normal=1 material=0
 
 
 def render_pair(spec):
-    from metal_pathtracer_tpu.ops.camera import build_camera
-    from metal_pathtracer_tpu.renderer import frame
-    from metal_pathtracer_tpu.renderer.accumulation import RenderState
-    from metal_pathtracer_tpu.schema import (
+    from metal_pathtracer.ops.camera import build_camera
+    from metal_pathtracer.renderer import frame
+    from metal_pathtracer.renderer.accumulation import RenderState
+    from metal_pathtracer.schema import (
         settings_to_static,
         settings_to_uniforms,
     )
@@ -189,7 +189,7 @@ def _cache_path():
     import hashlib
     import inspect
 
-    from metal_pathtracer_tpu.utils import benchscene
+    from metal_pathtracer.utils import benchscene
 
     key = hashlib.sha1()
     for spec in SCENES:
@@ -272,7 +272,7 @@ def main():
         print("training produced no finite loss; weights NOT written")
         sys.exit(1)
     out_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "metal_pathtracer_tpu", "data")
+        os.path.abspath(__file__))), "metal_pathtracer", "data")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "denoiser_weights.npz")
     np.savez(path, **best)

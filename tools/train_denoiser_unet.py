@@ -10,7 +10,7 @@ The cornell gate scene (tests/test_denoise_quality.py) stays held out:
 it is never rendered here, not even for model selection — training runs
 a fixed schedule and the test is the only judge.
 
-Writes metal_pathtracer_tpu/data/denoiser_unet.npz. Deterministic
+Writes metal_pathtracer/data/denoiser_unet.npz. Deterministic
 (fixed seeds). Runs on CPU: ~1.5h first time (renders), ~10 min from
 cached renders.
 """
@@ -30,7 +30,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from metal_pathtracer_tpu.ops import denoise_unet as unet  # noqa: E402
+from metal_pathtracer.ops import denoise_unet as unet  # noqa: E402
 from tools import train_denoiser as td  # noqa: E402
 
 # render the shared scene set at a larger tile than the tap trainer (the
@@ -153,7 +153,7 @@ def load_data():
 
 
 def main():
-    from metal_pathtracer_tpu.ops import denoise
+    from metal_pathtracer.ops import denoise
 
     data = load_data()
     n_scenes = data["ref"].shape[0]
@@ -266,7 +266,7 @@ def main():
               flush=True)
 
     out_path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "metal_pathtracer_tpu", "data",
+        os.path.abspath(__file__))), "metal_pathtracer", "data",
         "denoiser_unet.npz")
     np.savez(out_path, **{k: np.asarray(v) for k, v in params.items()})
     print(f"wrote {out_path}")
